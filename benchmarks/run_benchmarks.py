@@ -3,17 +3,19 @@
 
 Usage: python benchmarks/run_benchmarks.py [--quick] [--json OUT] [--parity]
 
-Runs on whatever backend JAX selects (the real TPU chip in this
-environment). --quick reduces resolution/spp for smoke runs. --parity also
-renders each scene with the C++ reference binary (cached under /tmp) and
-reports statistical image-parity metrics (reference RNG is
-nondeterministic, so comparison is mean + block bands, SURVEY §4.2).
+Needs a GPU: exits non-zero when JAX finds none. Every record names the
+device (platform, device_kind, count). --quick reduces resolution/spp for
+smoke runs. --parity also renders each scene with the C++ reference binary
+(REF_BIN, cached beside the outputs) and reports statistical image-parity
+metrics (reference RNG is nondeterministic, so comparison is mean + block
+bands, SURVEY §4.2).
 """
 
 import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -22,7 +24,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scenes"))
 sys.path.insert(0, ROOT)  # `python benchmarks/run_benchmarks.py` from anywhere
 
-REF_BIN = "/root/ref_build/build/take"
+REF_BIN = os.environ.get("TAKE_REFERENCE_BIN", "take")
 
 
 def parity_stats(ours, ref):
@@ -53,7 +55,7 @@ def parity_stats(ours, ref):
 
 
 def reference_render(name, scene_path, max_depth):
-    """Render via the C++ reference binary, cached under /tmp.
+    """Render via the C++ reference binary, cached in benchmarks/out/.
 
     The cache key includes max_depth (ADVICE r3: a name-only key silently
     reused goldens rendered at different settings); resolution comes from
@@ -61,15 +63,18 @@ def reference_render(name, scene_path, max_depth):
     pins it. The `_d{depth}` format matches tests/test_golden_scenes.py so
     the two harnesses share goldens only when settings agree.
     """
-    cache = f"/tmp/take_golden_{name}_d{max_depth}.exr"
+    cache_dir = os.path.join(ROOT, "benchmarks", "out", "golden")
+    cache = os.path.join(cache_dir, f"take_golden_{name}_d{max_depth}.exr")
     if not os.path.exists(cache):
-        if not os.path.exists(REF_BIN):
+        binary = shutil.which(REF_BIN)
+        if binary is None:
             return None
+        os.makedirs(cache_dir, exist_ok=True)
         subprocess.run(
-            [REF_BIN, os.path.abspath(scene_path), "-max_depth", str(max_depth)],
-            cwd="/tmp", check=True, capture_output=True, timeout=7200,
+            [binary, os.path.abspath(scene_path), "-max_depth", str(max_depth)],
+            cwd=cache_dir, check=True, capture_output=True, timeout=7200,
         )
-        os.replace("/tmp/image.exr", cache)
+        os.replace(os.path.join(cache_dir, "image.exr"), cache)
     from take_tpu.io.exr import read_exr
 
     return read_exr(cache)
@@ -97,11 +102,6 @@ def main():
         help="override room's 1024 spp spec (the measured sustainable spp "
         "is recorded in the results either way)",
     )
-    ap.add_argument(
-        "--big-pass", action="store_true",
-        help="opt into 2^20-path BVH passes (faster; see the risk note on "
-        "config.BVH_PASS_CAP — a sporadic TPU failure can kill the run)",
-    )
     args = ap.parse_args()
 
     from generate import ensure_assets
@@ -110,12 +110,17 @@ def main():
 
     import jax
 
-    from take_tpu import config
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        print(f"run_benchmarks: needs a GPU; JAX found {dev.platform!r}",
+              file=sys.stderr)
+        return 2
+    device = {"platform": dev.platform, "kind": dev.device_kind,
+              "count": len(jax.devices())}
+
     from take_tpu.config import enable_compile_cache
 
     enable_compile_cache()
-    if args.big_pass:
-        config.BVH_PASS_CAP = 1 << 20
 
     from take_tpu.core.camera import Camera
     from take_tpu.render import render_image
@@ -123,11 +128,10 @@ def main():
     from take_tpu.scene.parse_xml import parse_scene_file
     from take_tpu.scene.types import RenderOptions
 
-    print(f"backend: {jax.devices()}")
+    print(f"device: {device}")
     results = {}
-    # quick (smoke) runs get their OWN output directory: round 4's final
-    # quick run overwrote every full-spec evidence EXR in out/ with 128^2
-    # renders (VERDICT r4 weak #1) — spec paths are for spec renders only.
+    # quick (smoke) runs get their OWN output directory, so full-spec
+    # evidence EXRs in out/ are never overwritten by reduced renders
     outdir = os.path.join(ROOT, "benchmarks", "out")
     if args.quick:
         outdir = os.path.join(outdir, "quick")
@@ -164,28 +168,17 @@ def main():
         # warm-up with exactly ONE pass of the production shape: the pass
         # executable is keyed on n_samples-per-pass (k), so a 1-spp warmup
         # would leave the k>1 executable cold and bill its compile to the
-        # timed run (this cost cbox 8s of phantom time in results_r3)
-        max_pass = options.max_rays_per_pass
-        if scene.bvh is not None:
-            max_pass = min(max_pass, config.BVH_PASS_CAP)
-        k = max(1, min(options.spp, max_pass // max(W * H, 1)))
+        # timed run
+        k = max(1, min(options.spp, options.max_rays_per_pass // max(W * H, 1)))
         render_image(scene, dataclasses.replace(options, spp=k))
         t0 = time.time()
         img = render_image(scene, options)
         dt = time.time() - t0
-        # short renders are dominated by first-dispatch overhead and this
-        # VM's scheduling jitter (round 5: cbox measured 0.79 / 0.52 /
-        # 0.13 s across runs of identical code) — re-measure and keep the
-        # best, like bench.py
-        if dt < 5.0:
-            for _ in range(2):
-                t0 = time.time()
-                img = render_image(scene, options)
-                dt = min(dt, time.time() - t0)
 
         n_paths = W * H * spp
         rays = n_paths * (1 + 2 * (depth + 1))
         results[name] = {
+            "device": device,
             "resolution": [W, H],
             "spp": spp,
             "max_depth": depth,

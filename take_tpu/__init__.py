@@ -1,8 +1,9 @@
-"""take-tpu: a TPU-native differentiable wavefront path tracer in JAX/Pallas.
+"""take-tpu: a differentiable wavefront path tracer in JAX for the GPU.
 
-Re-designed from scratch with the capabilities of the TaKe C++ renderer
-(reference: /root/reference). The compute path is pure JAX (jit / Pallas /
-shard_map over device meshes); scenes compile to SoA device arrays.
+Re-designed from scratch with the capabilities of the TaKe C++ renderer.
+The compute path is JAX (jit / shard_map over device meshes) plus two
+scene-query kernels for the GPU (Pallas through Triton, and CUDA through
+jax.ffi); scenes compile to SoA device arrays.
 
 Public API:
     take_tpu.load_scene(path)          -> Scene (device arrays + static meta)

@@ -12,7 +12,7 @@ counter-based scheme keyed by (seed, pixel, sample, bounce, dim):
 
 The generator is a Philox-lite / murmur3-finalizer construction: the 96-bit
 logical counter (stream_hi, stream_lo, draw_index) is avalanche-mixed through
-integer rounds on the VPU. This is the standard "hash the path coordinates"
+integer rounds in vector code. This is the standard "hash the path coordinates"
 approach used by production wavefront renderers; statistical quality is
 validated in tests/test_rng.py (equidistribution + pair correlation).
 """

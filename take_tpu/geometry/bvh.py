@@ -1,19 +1,19 @@
 """Wide-BVH construction (host-side numpy) for device traversal.
 
 Design (SURVEY §7.1/§7.3): the reference's binary median-split BVH with one
-primitive per leaf and recursive traversal (bvh.cpp:8-45, :86-109) maps
-poorly to TPU lockstep lanes. Instead we build:
+primitive per leaf and recursive traversal (bvh.cpp:8-45, :86-109) is deep
+and visits many nodes per ray. Instead we build:
 
   * an LBVH-style binary tree via Morton-code radix sort (the north-star
-    structure) refined with median splits,
-  * collapsed into a WIDE BVH (branching factor 8, matching the VPU sublane
-    group) whose nodes store their children's AABBs as struct-of-arrays —
-    one [8, 6] slab test per visited node per ray, fully vectorized,
+    structure) refined with binned-SAH splits,
+  * collapsed into a WIDE BVH (branching factor 8) whose nodes store their
+    children's AABBs as struct-of-arrays — one [8, 6] slab test per visited
+    node per ray,
   * leaves reference contiguous runs of REORDERED triangles (clustered by
     the build), so a leaf test is a dense sweep over a small triangle range.
 
 Traversal lives in geometry/traverse.py (lax.while_loop + per-ray stack) and
-later a Pallas kernel.
+geometry/bvh_kernel.py (the CUDA kernel the GPU runs).
 """
 
 from dataclasses import dataclass
@@ -22,54 +22,6 @@ import numpy as np
 
 WIDTH = 8  # children per node
 LEAF_SIZE = 16  # max primitives per leaf
-
-# Streaming group-sweep pipeline granularities (geometry/pallas_cluster.py).
-# Clusters are consecutive runs of CLUSTER_K Morton-ordered triangles;
-# superclusters group SUP consecutive clusters (the HBM->VMEM DMA granule);
-# the sweep kernel slab-tests GROUP consecutive superclusters per aligned
-# VMEM read.
-CLUSTER_K = 64
-SUP = 8
-GROUP = 8
-
-
-def cluster_pad(n_tri: int) -> int:
-    """Padded cluster count: covers n_tri and is a multiple of SUP."""
-    C = max(1, -(-n_tri // CLUSTER_K))
-    return max(SUP, -(-C // SUP) * SUP)
-
-
-def cluster_aabbs(bmin: np.ndarray, bmax: np.ndarray, n_tri: int):
-    """(cl_aabb [Cpad, 8], sup_aabb [SupP, 8]) AABB tables, rows =
-    (min.xyz, max.xyz, 0, 0), over runs of Morton-ordered triangles.
-    bmin/bmax are per-triangle AABBs in final (reordered) order, length
-    >= n_tri. SupP = Cpad/SUP rounded up to a multiple of GROUP.
-
-    Padding rows (clusters beyond the last valid one; supercluster rows
-    beyond the last valid supercluster) are all-NaN: NaN comparisons are
-    false, so the kernels' slab tests can never hit them. (Inverted boxes
-    do NOT work for this — per-axis min/max of the two plane distances
-    turns an inverted box into an all-space box that hits every ray.)"""
-    C = max(1, -(-n_tri // CLUSTER_K))
-    Cpad = cluster_pad(n_tri)
-    out = np.full((Cpad, 8), np.nan, np.float32)
-    for c in range(C):
-        s, e = c * CLUSTER_K, min((c + 1) * CLUSTER_K, n_tri)
-        if e > s:
-            out[c, 0:3] = bmin[s:e].min(axis=0)
-            out[c, 3:6] = bmax[s:e].max(axis=0)
-            out[c, 6:8] = 0.0
-    Csup = Cpad // SUP
-    SupP = max(GROUP, -(-Csup // GROUP) * GROUP)
-    sup = np.full((SupP, 8), np.nan, np.float32)
-    n_valid_sup = -(-C // SUP)  # sups containing at least one valid cluster
-    for s_id in range(n_valid_sup):
-        lo, hi = s_id * SUP, min(s_id * SUP + SUP, C)
-        sup[s_id, 0:3] = out[lo:hi, 0:3].min(axis=0)
-        sup[s_id, 3:6] = out[lo:hi, 3:6].max(axis=0)
-        sup[s_id, 6:8] = 0.0
-    return out, sup
-
 
 @dataclass
 class _BuildNode:
@@ -100,12 +52,10 @@ _SAH_BINS = 16
 def _build_binary(order, centers, bmin, bmax, lo, hi, depth=0):
     """Top-down binned-SAH split; returns a _BuildNode.
 
-    Quality matters directly on TPU: the packet kernel sweeps every leaf
-    ANY ray in a block touches, so false-positive leaf visits multiply by
-    the block width. Binned SAH (16 bins, all 3 axes) cuts visited leaves
-    ~2-3x vs the earlier Morton median split. Partitioning reorders
-    `order` in place, so the final primitive order is DFS leaf order —
-    spatially coherent, which is what the supercluster tables want too.
+    Tree quality sets the number of nodes and leaves every ray visits.
+    Binned SAH (16 bins, all 3 axes) cuts visited leaves vs a Morton
+    median split. Partitioning reorders `order` in place, so the final
+    primitive order is DFS leaf order — spatially coherent.
     """
     idx = order[lo:hi]
     node_min = bmin[idx].min(axis=0)

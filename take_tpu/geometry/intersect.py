@@ -1,11 +1,12 @@
 """Batched ray/scene intersection (brute force path).
 
-TPU-layout-aware design: the all-pairs sweep is computed in *component form*
-— every temporary is an [N, T] (rays x triangles) or [N, S] f32 array, never
-[N, T, 3]. On TPU the trailing length-3 axis of naive vector math would
-occupy 3 of 128 vector lanes (a 42x waste); in component form the primitive
-axis fills the lanes (the scene builder pads triangle tables to a multiple
-of 128). The wavefront keeps rays as flat SoA arrays [N].
+The plain all-pairs sweep is computed in *component form* — every temporary
+is an [N, T] (rays x triangles) or [N, S] f32 array, never [N, T, 3]. The
+wavefront keeps rays as flat SoA arrays [N]. On the GPU the triangle sweep
+runs in one fused kernel instead (geometry/brute_kernel.py, Pallas through
+Triton) that keeps the running closest hit in registers and never writes
+the [N, T] temporaries; this module's jnp sweep stays the plain reference,
+the CPU path and the gradient rule.
 
 Primitive semantics mirror the reference exactly:
   * Möller–Trumbore with parallel-ray epsilon reject (shape.cpp:44-110),
@@ -18,12 +19,15 @@ Primitive semantics mirror the reference exactly:
 
 The BVH path (geometry/traverse.py) replaces the all-pairs sweep for large
 scenes; both produce identical Hit records.
+
+Which code answers a query is decided once per trace from the platform
+(`query_platform`): the kernels on the GPU, the plain jnp code on the CPU,
+and any other platform raises.
 """
 
 import jax
 import jax.numpy as jnp
 
-from take_tpu import config
 from take_tpu.core.math import C_PI, C_TWOPI, normalize
 from take_tpu.scene.types import (
     ATTR_EMIT,
@@ -57,7 +61,7 @@ _BIG = 3.4e38  # plain float: no import-time backend init (see traverse.py)
 
 
 def _tri_uvt(g, ro, rd, tmin, tmax, n_tri):
-    """Ray-triangle intersection as two MXU matmuls. Returns (t, u, v, valid).
+    """Ray-triangle intersection as two matmuls. Returns (t, u, v, valid).
 
     Each triangle owns an affine map into its (u, v, w) frame (columns
     e1, e2, n inverted; built in scene/build.py): with s = M (o - v0) and
@@ -65,15 +69,15 @@ def _tri_uvt(g, ro, rd, tmin, tmax, n_tri):
     v = s_v + t dd_v. The maps for all T triangles are packed axis-major
     into [4, 3T] / [3, 3T] operands, so the whole sweep is
       [N, 4] @ [4, 3T] and [N, 3] @ [3, 3T]
-    — MXU work — followed by a handful of [N, T] elementwise ops on
-    contiguous slices. No [N, T, 3] temporaries, no gathers.
+    followed by a handful of [N, T] elementwise ops on contiguous slices.
+    No [N, T, 3] temporaries, no gathers.
     """
     T = g.tri_attr.shape[0]
     dt = ro.dtype
     oh = jnp.concatenate([ro, jnp.ones((ro.shape[0], 1), dt)], axis=1)  # [N,4]
-    # Precision.HIGHEST: TPU f32 matmuls default to single-pass bf16, whose
-    # ~8-bit mantissa is catastrophic for world-space intersection at scene
-    # scale. K is 3/4 so the full-precision passes cost nothing.
+    # Precision.HIGHEST: a default-precision f32 matmul may run in TF32 on
+    # the GPU (~10-bit mantissa), catastrophic for world-space intersection
+    # at scene scale. K is 3/4, so full precision costs nothing.
     # stop_gradient: geometry/visibility derivatives are out of scope
     # (north star: continuous material/texture/light parameters only) and
     # backprop through padded-degenerate rows produces NaN.
@@ -149,21 +153,27 @@ def _sphere_uv(p):
     return jnp.stack([phi / C_TWOPI, -theta / C_PI], axis=-1)
 
 
-def _pallas_eligible(scene: Scene) -> bool:
-    """Trace-time gate for the fused Pallas sweep (geometry/pallas_brute.py):
-    TPU backend, triangles present, tables small enough to sit in VMEM for
-    the whole grid. CPU tests and big (BVH) scenes take the other paths."""
-    from take_tpu.geometry import pallas_brute
+def query_platform() -> str:
+    """Platform the scene queries are traced for: "gpu" (the kernels) or
+    "cpu" (the plain jnp code). Any other platform raises.
 
-    return (
-        config.PALLAS_BRUTE
-        and jax.default_backend() == "tpu"
-        and scene.meta.n_tri > 0
-        and scene.geometry.tri_attr.shape[0] <= pallas_brute.MAX_TRIS
-    )
+    Follows jax.default_backend(), unless a default device is set
+    (`with jax.default_device(...)`), which lets one process render on the
+    CPU beside the GPU for a parity check. jit keys its caches on the
+    default device, so each platform traces its own program."""
+    dev = jax.config.jax_default_device
+    if dev is None:
+        platform = jax.default_backend()
+    else:
+        platform = getattr(dev, "platform", dev)
+    if platform not in ("gpu", "cpu"):
+        raise NotImplementedError(
+            f"no scene-query implementation for platform {platform!r}"
+        )
+    return platform
 
 
-def intersect_scene(scene: Scene, ro, rd, tmin, tmax, sort_perm=None) -> Hit:
+def intersect_scene(scene: Scene, ro, rd, tmin, tmax) -> Hit:
     """Closest-hit query for a batch of rays.
 
     Args:
@@ -171,60 +181,38 @@ def intersect_scene(scene: Scene, ro, rd, tmin, tmax, sort_perm=None) -> Hit:
         ro, rd: [N, 3] origins / directions (rd need not be unit length —
             the reference's sphere code divides by dot(d, d)).
         tmin, tmax: [N] parametric range.
-        sort_perm: optional precomputed (perm, inv) coherence permutation
-            to reuse (BVH path only; see traverse._traverse_backend).
     Returns:
         Hit SoA with [N] leading axis.
     """
     if scene.bvh is not None:
         from take_tpu.geometry.traverse import bvh_intersect
 
-        return bvh_intersect(scene, ro, rd, tmin, tmax, sort_perm=sort_perm)
-    if _pallas_eligible(scene):
+        return bvh_intersect(scene, ro, rd, tmin, tmax)
+    if scene.meta.n_tri > 0 and query_platform() == "gpu":
         return _brute_intersect_hybrid(scene, ro, rd, tmin, tmax)
     return _brute_force_intersect(scene, ro, rd, tmin, tmax)
 
 
-def _pad_rays(ro, rd, tmin, tmax, block):
-    """Pad the ray axis to a multiple of `block` with guaranteed-miss rays."""
-    N = ro.shape[0]
-    Np = -(-N // block) * block
-    if Np == N:
-        return N, ro, rd, tmin, tmax
-    pad = Np - N
-    ro = jnp.concatenate([ro, jnp.zeros((pad, 3), ro.dtype)])
-    rd = jnp.concatenate([rd, jnp.zeros((pad, 3), rd.dtype)])
-    tmin = jnp.concatenate([tmin, jnp.zeros(pad, tmin.dtype)])
-    tmax = jnp.concatenate([tmax, jnp.full(pad, -1.0, tmax.dtype)])
-    return N, ro, rd, tmin, tmax
-
-
-def _pallas_brute_intersect(scene: Scene, ro, rd, tmin, tmax) -> Hit:
+def _kernel_brute_intersect(scene: Scene, ro, rd, tmin, tmax) -> Hit:
     """Triangle sweep in the fused kernel; sphere merge stays in XLA."""
-    from take_tpu.geometry import pallas_brute
+    from take_tpu.geometry import brute_kernel
 
-    g = scene.geometry
-    N, ro_p, rd_p, tmin_p, tmax_p = _pad_rays(
-        ro, rd, tmin, tmax, pallas_brute.BLOCK
+    attrs, tri_t, u_best, v_best, prim = brute_kernel.tri_closest(
+        scene.geometry, scene.meta.n_tri, ro, rd, tmin, tmax
     )
-    attrs, tri_t, u_best, v_best, tri_hit = pallas_brute.pallas_tri_sweep(
-        g, scene.meta.n_tri, ro_p, rd_p, tmin_p, tmax_p
-    )
-    attrs, tri_t = attrs[:N], tri_t[:N]
-    u_best, v_best, tri_hit = u_best[:N], v_best[:N], tri_hit[:N]
     return _merge_and_shade(
-        scene, ro, rd, tmin, tmax, tri_t, tri_hit, attrs, u_best, v_best
+        scene, ro, rd, tmin, tmax, tri_t, prim >= 0, attrs, u_best, v_best
     )
 
 
 @jax.custom_vjp
 def _brute_intersect_hybrid(scene: Scene, ro, rd, tmin, tmax) -> Hit:
-    return _pallas_brute_intersect(scene, ro, rd, tmin, tmax)
+    return _kernel_brute_intersect(scene, ro, rd, tmin, tmax)
 
 
 def _hybrid_fwd(scene, ro, rd, tmin, tmax):
     return (
-        _pallas_brute_intersect(scene, ro, rd, tmin, tmax),
+        _kernel_brute_intersect(scene, ro, rd, tmin, tmax),
         (scene, ro, rd, tmin, tmax),
     )
 
@@ -256,10 +244,11 @@ def _brute_force_intersect(scene: Scene, ro, rd, tmin, tmax) -> Hit:
         tri_t = jnp.min(t_tri_masked, axis=1)
         tri_hit = tri_t < _BIG
 
-        # winner attributes via one-hot @ attribute-table (MXU) — no gathers.
-        # HIGHEST precision: attribute columns carry ids/flags that bf16
-        # passes would round. Geometry columns are stop-gradded; the EMIT
-        # slice stays differentiable (emission gradients flow through it).
+        # winner attributes via one-hot @ attribute-table — no gathers.
+        # HIGHEST precision: attribute columns carry ids/flags that a
+        # reduced-precision (TF32) pass would round. Geometry columns are
+        # stop-gradded; the EMIT slice stays differentiable (emission
+        # gradients flow through it).
         onehot = (jnp.arange(T)[None, :] == best_tri[:, None]).astype(ro.dtype)
         attrs = jnp.dot(
             onehot, jax.lax.stop_gradient(g.tri_attr),
@@ -416,7 +405,7 @@ def shade_sphere_hit(g, idx, ro, rd, t) -> Hit:
     )
 
 
-def occluded(scene: Scene, ro, rd, tmin, tmax, sort_perm=None):
+def occluded(scene: Scene, ro, rd, tmin, tmax):
     """Any-hit query: True where something lies in (tmin, tmax).
 
     The reference runs a full closest-hit for this (scene.cpp:49-63 ⚠); our
@@ -426,22 +415,19 @@ def occluded(scene: Scene, ro, rd, tmin, tmax, sort_perm=None):
     if scene.bvh is not None:
         from take_tpu.geometry.traverse import bvh_occluded
 
-        return bvh_occluded(scene, ro, rd, tmin, tmax, sort_perm=sort_perm)
+        return bvh_occluded(scene, ro, rd, tmin, tmax)
     g = scene.geometry
     meta = scene.meta
     occ = jnp.zeros(ro.shape[0], bool)
-    if meta.n_tri > 0 and _pallas_eligible(scene):
-        from take_tpu.geometry import pallas_brute
+    if meta.n_tri > 0 and query_platform() == "gpu":
+        from take_tpu.geometry import brute_kernel
 
         # visibility is constant under AD (grad.py scope): detach inputs so
         # no tangent reaches the kernel
         sg = jax.lax.stop_gradient
-        N, ro_p, rd_p, tmin_p, tmax_p = _pad_rays(
-            sg(ro), sg(rd), sg(tmin), sg(tmax), pallas_brute.BLOCK
+        occ = brute_kernel.tri_occluded(
+            sg(g), meta.n_tri, sg(ro), sg(rd), sg(tmin), sg(tmax)
         )
-        occ = pallas_brute.pallas_tri_occluded(
-            sg(g), meta.n_tri, ro_p, rd_p, tmin_p, tmax_p
-        )[:N]
     elif meta.n_tri > 0:
         _, _, _, valid_t = _tri_uvt(g, ro, rd, tmin, tmax, meta.n_tri)
         occ = jnp.any(valid_t, axis=1)

@@ -6,15 +6,15 @@ AABBs ([N, W] vectorized), pushes internal hits, and resolves leaf hits by
 testing the leaf's contiguous triangle run (gathered Möller–Trumbore in
 component form). tmax shrinks to the best hit so far, culling later nodes.
 
-This is the portable fallback; the Pallas kernel (same node layout) replaces
-it on the hot path. Produces Hit records identical to the brute-force sweep
+This is the plain reference and the CPU path; on the GPU the CUDA kernel in
+geometry/bvh_kernel.py (same node layout, same tie-breaking) replaces it.
+Produces Hit records identical to the brute-force sweep
 (geometry/intersect.py) — property-tested against it.
 """
 
 import jax
 import jax.numpy as jnp
 
-from take_tpu import config
 from take_tpu.geometry.bvh import LEAF_SIZE, WIDTH
 from take_tpu.scene.types import ATTR_EMIT, Hit, Scene
 
@@ -24,28 +24,6 @@ STACK = 64
 # the XLA backend at import, which breaks jax.distributed.initialize in
 # multi-process launches (it must run before any backend init)
 _BIG = 3.4e38
-
-# VMEM budget for the packet kernel's resident tables (node boxes + triangle
-# affine operands). The chip has ~128MB VMEM (measured on v5e); the kernel
-# requests a 110MB scoped budget, and this gate leaves headroom for ray
-# blocks, outputs, and Mosaic temporaries. Beyond it the streaming cluster
-# pipeline (HBM-resident triangles) takes over.
-_PACKET_VMEM_BYTES = 88 * 2**20
-
-
-def _packet_eligible(scene: Scene) -> bool:
-    """Trace-time gate for the Pallas packet kernel: TPU backend and the BVH
-    node table + triangle operands fit the VMEM budget together."""
-    if not (config.PALLAS_BRUTE and jax.default_backend() == "tpu"):
-        return False
-    bvh = scene.bvh
-    M = bvh.node_child.shape[0]
-    Tpad = scene.geometry.tri_attr.shape[0]
-    # PHYSICAL VMEM: both tables are sublane-major with few used lanes, so
-    # each row occupies a full 128-lane tile (see pallas_traverse docstring)
-    node_bytes = M * WIDTH * 128 * 4
-    tri_bytes = Tpad * 128 * 4
-    return node_bytes + tri_bytes <= _PACKET_VMEM_BYTES
 
 
 def _slab_test(nmin, nmax, ro, inv_rd, tmin, tmax):
@@ -197,301 +175,33 @@ def _traverse(scene: Scene, ro, rd, tmin, tmax, any_hit: bool):
     return best_t, best_u, best_v, best_prim, found
 
 
-# --------------------------------------------------------------------------
-# Ray binning (SURVEY §7.3 #1): both Pallas paths live or die by BLOCK
-# coherence — the packet kernel pushes a node if ANY lane hits it, and the
-# cluster kernel DMAs every supercluster ANY lane touches. Bounce waves
-# arrive pixel-ordered (incoherent directions), so before blocking we sort
-# rays by (direction octant, origin Morton) and scatter results back.
-# Primary rays share an origin, so the stable sort degenerates to grouping
-# by octant while preserving scanline order — near-zero perturbation there.
-# Per-ray results are independent of block composition: exact-t ties break
-# toward the lower primitive index in every backend (packet leaf_sweep,
-# cluster _sweep_sup, jnp leaf_w), so near-first sweep order — which DOES
-# depend on block composition — cannot change the winner, and binning never
-# changes the image.
-_SORT_MIN_RAYS = 4096
+def _traverse_backend(scene: Scene, ro, rd, tmin, tmax, any_hit: bool):
+    """(t, u, v, prim, found) from the CUDA traversal kernel on the GPU
+    (geometry/bvh_kernel.py) or the jnp while-loop elsewhere (the CPU).
 
-
-def _morton8(q):
-    """Interleave 3x8-bit coords [N, 3] -> 24-bit Morton codes [N]."""
-
-    def spread(v):
-        v = (v | (v << 16)) & 0x030000FF
-        v = (v | (v << 8)) & 0x0300F00F
-        v = (v | (v << 4)) & 0x030C30C3
-        v = (v | (v << 2)) & 0x09249249
-        return v
-
-    return (
-        (spread(q[:, 0]) << 2) | (spread(q[:, 1]) << 1) | spread(q[:, 2])
-    )
-
-
-def _counting_perm(key, n_bits: int):
-    """Stable counting sort by the TOP n_bits of the binning key ->
-    (perm, inv).
-
-    The full 27-bit jnp.argsort costs 38-42 ms per 2^18-ray wave on the
-    chip (comparator sort; measured round 4, traverse_ablate) — a fixed
-    tax per traversal query. Block coherence only needs rays BUCKETED, not
-    totally ordered: with the sort stable, rays inside a bucket keep
-    raster order (exactly the within-bucket order the 27-bit key's low
-    origin bits approximate anyway). Cost model: one [C, B]-chunked
-    one-hot + cumsum (memory-bound, ~1 GB traffic at 2^18 x 1024 buckets)
-    + two gathers + one scatter, a few ms total.
-
-    Correctness does not depend on the permutation at all (per-ray results
-    are block-order independent, see the binning note above); any
-    deterministic permutation is valid.
-    """
-    N = key.shape[0]
-    B = 1 << n_bits
-    bucket = (key >> (27 - n_bits)).astype(jnp.int32)
-    bucket = jnp.clip(bucket, 0, B - 1)
-    C = min(N, 1 << 15)
-    n_chunks = -(-N // C)
-    Npad = n_chunks * C
-    if Npad != N:
-        # pad with the LAST bucket so padding lands at the end; callers
-        # slice perm[:N] implicitly via the gather below
-        bucket = jnp.concatenate(
-            [bucket, jnp.full(Npad - N, B - 1, jnp.int32)])
-    bch = bucket.reshape(n_chunks, C)
-    iota_b = jnp.arange(B, dtype=jnp.int32)[None, :]
-
-    def chunk_scan(carry, bk):
-        base = carry  # [B] counts before this chunk
-        onehot = (bk[:, None] == iota_b).astype(jnp.int32)  # [C, B]
-        # exclusive prefix within the chunk
-        excl = jnp.cumsum(onehot, axis=0) - onehot
-        local = jnp.take_along_axis(excl, bk[:, None], axis=1)[:, 0]
-        rank = base[bk] + local
-        return base + onehot.sum(axis=0), rank
-
-    total, ranks = jax.lax.scan(chunk_scan, jnp.zeros(B, jnp.int32), bch)
-    offsets = jnp.cumsum(total) - total  # exclusive bucket offsets [B]
-    pos = offsets[bucket] + ranks.reshape(Npad)  # position of each ray
-    pos = pos[:N]
-    perm = jnp.zeros(N, jnp.int32).at[pos].set(
-        jnp.arange(N, dtype=jnp.int32))
-    return perm, pos  # pos IS the inverse permutation
-
-
-def _coherence_perm(scene: Scene, ro, rd):
-    """(perm, inv): ascending (direction, origin-Morton) ray order and its
-    inverse. Scene bounds come from the BVH root's child boxes (padding
-    slots hold +/-3e38 and drop out of the min/max).
-
-    Key layout, most-significant first: direction octant (3 bits), then
-    config.SORT_DIR_BITS extra Morton bits per direction axis (finer
-    direction cones), then origin Morton filling the remainder of 27 bits.
-    """
-    bvh = scene.bvh
-    bmin = jnp.min(bvh.node_min[0], axis=0)
-    bmax = jnp.max(bvh.node_max[0], axis=0)
-    ext = jnp.maximum(bmax - bmin, 1e-12)
-    db = int(getattr(config, "SORT_DIR_BITS", 0))
-    ob = min(8, (27 - 3 - 3 * db) // 3)
-    oq = jnp.clip(
-        (ro - bmin) / ext * float(1 << ob), 0.0, float((1 << ob) - 1)
-    ).astype(jnp.int32)
-    # morton over ob-bit coords: reuse the 8-bit spreader (valid for <= 8)
-    omorton = _morton8(oq)
-    octant = (
-        ((rd[:, 0] < 0).astype(jnp.int32) << 2)
-        | ((rd[:, 1] < 0).astype(jnp.int32) << 1)
-        | (rd[:, 2] < 0).astype(jnp.int32)
-    )
-    if not getattr(config, "SORT_OCTANT", True):
-        octant = jnp.zeros_like(octant)  # origin-only key (experiment)
-    key = octant
-    if db > 0:
-        dq = jnp.clip(
-            (jnp.abs(rd) * float(1 << db)), 0.0, float((1 << db) - 1)
-        ).astype(jnp.int32)
-        key = (key << (3 * db)) | _morton8(dq)
-    key = (key << (3 * ob)) | omorton
-    if config.SORT_MODE == "counting":  # opt-in experiment; default argsort
-        return _counting_perm(key, int(config.SORT_BITS))
-    perm = jnp.argsort(key)
-    inv = jnp.zeros_like(perm).at[perm].set(
-        jnp.arange(perm.shape[0], dtype=perm.dtype)
-    )
-    return perm, inv
-
-
-def _cluster_eligible(scene: Scene) -> bool:
-    """Trace-time gate for the streaming cluster pipeline: TPU backend with
-    cluster tables present. Unlike the packet kernel there is NO size cap —
-    triangle operands stream from HBM (pallas_cluster.py docstring)."""
-    return (
-        config.PALLAS_CLUSTER
-        and jax.default_backend() == "tpu"
-        and scene.bvh is not None
-        and getattr(scene.bvh, "cl_aabb", None) is not None
-        and scene.meta.n_tri > 0
-    )
-
-
-def _cluster_query(scene: Scene, ro, rd, tmin, tmax, any_hit: bool):
-    from take_tpu.geometry.intersect import _pad_rays
-    from take_tpu.geometry.pallas_cluster import BLOCK as CBLOCK
-    from take_tpu.geometry.pallas_cluster import cluster_traverse
-
-    N, ro_p, rd_p, tmin_p, tmax_p = _pad_rays(ro, rd, tmin, tmax, CBLOCK)
-    out = cluster_traverse(
-        scene.bvh.sup_aabb,
-        scene.geometry.tri_sweep,
-        ro_p,
-        rd_p,
-        tmin_p,
-        tmax_p,
-        any_hit=any_hit,
-    )
-    if any_hit:
-        return out[:N]
-    t, u, v, prim = out
-    t, u, v, prim = t[:N], u[:N], v[:N], prim[:N]
-    return t, u, v, prim, prim >= 0
-
-
-def _two_phase_closest(closest, d0, ro, rd, tmin, tmax):
-    """Two-phase closest hit (estimator-exact traversal optimization).
-
-    Phase 1 runs `closest` with every ray capped at range d0: with origins
-    binned, each block's node union is a tight neighborhood instead of the
-    whole tree. A lane is RESOLVED if it found a hit (necessarily the
-    global closest — everything nearer than d0 was tested) or its own tmax
-    was fully covered by the short range. Phase 2 compacts unresolved
-    lanes to the front (stable sort keeps the binning order within each
-    class) and re-traces them at full range; resolved lanes ride along
-    dead (tmax = -BIG), so their blocks exit at the root test.
-    """
-    N = ro.shape[0]
-    t, u, v, prim = closest(ro, rd, tmin, jnp.minimum(tmax, d0))
-    resolved = (prim >= 0) | (tmax <= d0)
-    perm2 = jnp.argsort(resolved.astype(jnp.int32), stable=True)
-    inv2 = jnp.zeros_like(perm2).at[perm2].set(
-        jnp.arange(N, dtype=perm2.dtype)
-    )
-    tmax2 = jnp.where(resolved, -_BIG, tmax)[perm2]
-    t2, u2, v2, p2 = closest(ro[perm2], rd[perm2], tmin[perm2], tmax2)
-    t2, u2, v2, p2 = t2[inv2], u2[inv2], v2[inv2], p2[inv2]
-    return (
-        jnp.where(resolved, t, t2),
-        jnp.where(resolved, u, u2),
-        jnp.where(resolved, v, v2),
-        jnp.where(resolved, prim, p2),
-    )
-
-
-def _use_cluster(scene: Scene) -> bool:
-    """The packet kernel wins whenever its tables fit the VMEM budget
-    (judge-measured 754 Mrays/s on room primaries); the streaming cluster
-    pipeline is the beyond-VMEM path. config.FORCE_CLUSTER overrides for
-    testing/benchmarks."""
-    if not _cluster_eligible(scene):
-        return False
-    return getattr(config, "FORCE_CLUSTER", False) or not _packet_eligible(
-        scene
-    )
-
-
-def _traverse_backend(scene: Scene, ro, rd, tmin, tmax, sort_perm=None):
-    """(t, u, v, prim, found) from the packet kernel (TPU, tables fit VMEM),
-    the streaming cluster pipeline (TPU, any size), or the jnp while-loop.
     Inputs are DETACHED: lax.while_loop is not reverse-differentiable and
-    the Pallas kernels are primal-only, so traversal treats
-    geometry/visibility as constant under AD — matching the brute path's
-    stop-gradded geometry. Emission stays differentiable through the
-    attribute gather in bvh_intersect."""
+    the kernel is primal-only, so traversal treats geometry/visibility as
+    constant under AD — matching the brute path's stop-gradded geometry.
+    Emission stays differentiable through the attribute gather in
+    bvh_intersect."""
+    from take_tpu.geometry.intersect import query_platform
+
     sg = jax.lax.stop_gradient
     scene, ro, rd = sg(scene), sg(ro), sg(rd)
     tmin, tmax = sg(tmin), sg(tmax)
-    if getattr(config, "FORCE_SWEEP", False) and _packet_eligible(scene):
-        # experimental alternate backend (see config.FORCE_SWEEP note)
-        from take_tpu.geometry.intersect import _pad_rays
-        from take_tpu.geometry.pallas_sweep import sweep_traverse
-        from take_tpu.geometry.pallas_traverse import prep_tables
+    if query_platform() == "gpu":
+        from take_tpu.geometry.bvh_kernel import bvh_traverse
 
-        N = ro.shape[0]
-        _, ro_p, rd_p, tmin_p, tmax_p = _pad_rays(ro, rd, tmin, tmax, 128)
-        t, u, v, prim = sweep_traverse(
-            scene.bvh.cl_aabb, prep_tables(scene)[1],
-            ro_p, rd_p, tmin_p, tmax_p, n_tri=int(scene.meta.n_tri),
-        )
-        return t[:N], u[:N], v[:N], prim[:N], prim[:N] >= 0
-    use_cluster = _use_cluster(scene)
-    use_packet = not use_cluster and _packet_eligible(scene)
-    if not (use_cluster or use_packet):
-        return _traverse(scene, ro, rd, tmin, tmax, any_hit=False)
-
-    N = ro.shape[0]
-    do_sort = (config.RAY_SORT and getattr(config, "SORT_CLOSEST", True)
-               and N >= _SORT_MIN_RAYS)
-    if do_sort:
-        # a caller-provided (perm, inv) pair (the bounce's shared
-        # shadow-query perm; origins are near-identical so origin-Morton
-        # locality is preserved) skips this query's own argsort —
-        # measured 26 ms per 2^18 rays, ~40% of a room pass across 14
-        # queries (round 5)
-        if sort_perm is not None:
-            perm, inv = sort_perm
-        else:
-            perm, inv = _coherence_perm(scene, ro, rd)
-        ro, rd = ro[perm], rd[perm]
-        tmin, tmax = tmin[perm], tmax[perm]
-
-    def closest(ro_q, rd_q, tmin_q, tmax_q):
-        if use_cluster:
-            t, u, v, prim, _ = _cluster_query(
-                scene, ro_q, rd_q, tmin_q, tmax_q, any_hit=False
-            )
-            return t, u, v, prim
-        from take_tpu.geometry.intersect import _pad_rays
-        from take_tpu.geometry.pallas_traverse import (
-            packet_traverse,
-            prep_tables,
-        )
-
-        blk = config.PACKET_BLOCK
-        Np, ro_p, rd_p, tmin_p, tmax_p = _pad_rays(
-            ro_q, rd_q, tmin_q, tmax_q, blk
-        )
-        nodes, tris = prep_tables(scene)
-        t, u, v, prim = packet_traverse(
-            nodes, tris, ro_p, rd_p, tmin_p, tmax_p, block=blk
-        )
-        return t[:N], u[:N], v[:N], prim[:N]
-
-    # two-phase only pays when the tree is big enough that full-range
-    # unions dwarf the extra phase (measured: textured 35.6->52.1s WITH it
-    # at 8k tris; room-class scenes are the target)
-    if config.TWO_PHASE and do_sort and scene.meta.n_tri >= 65536:
-        bvh = scene.bvh
-        bmin = jnp.min(bvh.node_min[0], axis=0)
-        bmax = jnp.max(bvh.node_max[0], axis=0)
-        d0 = config.TWO_PHASE_FRAC * jnp.linalg.norm(bmax - bmin)
-        t, u, v, prim = _two_phase_closest(
-            closest, d0, ro, rd, tmin, tmax
-        )
-    else:
-        t, u, v, prim = closest(ro, rd, tmin, tmax)
-    found = prim >= 0
-
-    if do_sort:
-        t, u, v = t[inv], u[inv], v[inv]
-        prim, found = prim[inv], found[inv]
-    return t, u, v, prim, found
+        return bvh_traverse(scene, ro, rd, tmin, tmax, any_hit=any_hit)
+    return _traverse(scene, ro, rd, tmin, tmax, any_hit=any_hit)
 
 
-def bvh_intersect(scene: Scene, ro, rd, tmin, tmax, sort_perm=None) -> Hit:
+def bvh_intersect(scene: Scene, ro, rd, tmin, tmax) -> Hit:
     from take_tpu.geometry.intersect import _merge_and_shade
 
     g = scene.geometry
     t, u, v, prim, found = _traverse_backend(
-        scene, ro, rd, tmin, tmax, sort_perm=sort_perm)
+        scene, ro, rd, tmin, tmax, any_hit=False)
 
     prim_safe = jnp.maximum(prim, 0)
     # same gradient scope as the brute path: geometry columns detached, the
@@ -511,74 +221,23 @@ def bvh_intersect(scene: Scene, ro, rd, tmin, tmax, sort_perm=None) -> Hit:
 # backend handles triangles only, and bvh_intersect/bvh_occluded merge a
 # dense [N, n_sph] quadratic test afterward (_sph_t). This is exact and
 # near-free at the scene sizes the reference targets (its own scenes carry
-# <= 2 spheres; a dense [N, S] sweep is one fused VPU pass), but it is an
-# O(n_sph) PER-RAY tax: at ~1k+ spheres the sweep would rival the BVH
-# itself. Ceiling documented per VERDICT r3; folding spheres into leaf
-# runs (as synthetic AABBs with a tag bit in the prim id) is the upgrade
-# path if a sphere-heavy workload ever appears.
+# <= 2 spheres; a dense [N, S] sweep is one fused elementwise pass), but it
+# is an O(n_sph) PER-RAY tax: at ~1k+ spheres the sweep would rival the BVH
+# itself. Folding spheres into leaf runs (as synthetic AABBs with a tag bit
+# in the prim id) is the upgrade path if a sphere-heavy workload appears.
 
 
-def bvh_occluded(scene: Scene, ro, rd, tmin, tmax, sort_perm=None):
+def bvh_occluded(scene: Scene, ro, rd, tmin, tmax):
+    """True any-hit query: traversal stops at the first occluder (fixes the
+    reference's closest-hit scene_occluded, scene.cpp:49-63 ⚠)."""
     from take_tpu.geometry.intersect import _sph_t
 
-    sg = jax.lax.stop_gradient
-    scene, ro, rd = sg(scene), sg(ro), sg(rd)
-    tmin, tmax = sg(tmin), sg(tmax)
-    # original-order rays for the analytic-sphere merge below: the kernel
-    # branches permute ro/rd in place but return `found` un-permuted, so the
-    # sphere test MUST run on these (ADVICE r3 high: the permuted-ray sphere
-    # test assigned occlusion to the wrong lanes on TPU)
-    ro0, rd0, tmin0, tmax0 = ro, rd, tmin, tmax
-    if _use_cluster(scene):
-        # TRUE any-hit kernel (early-exit per block; fixes the reference's
-        # closest-hit scene_occluded, scene.cpp:49-63 ⚠)
-        N = ro.shape[0]
-        do_sort = (config.RAY_SORT and getattr(config, "SORT_SHADOW", True)
-                   and N >= _SORT_MIN_RAYS)
-        if do_sort:
-            if sort_perm is not None:
-                perm, inv = sort_perm
-            else:
-                perm, inv = _coherence_perm(scene, ro, rd)
-            ro, rd = ro[perm], rd[perm]
-            tmin, tmax = tmin[perm], tmax[perm]
-        found = _cluster_query(scene, ro, rd, tmin, tmax, any_hit=True)
-        if do_sort:
-            found = found[inv]
-    elif _packet_eligible(scene):
-        # TRUE any-hit packet query: blocks stop at the first occluder for
-        # every live lane (fixes the reference's closest-hit scene_occluded,
-        # scene.cpp:49-63 ⚠)
-        from take_tpu.geometry.intersect import _pad_rays
-        from take_tpu.geometry.pallas_traverse import (
-            packet_traverse,
-            prep_tables,
-        )
-
-        N = ro.shape[0]
-        do_sort = (config.RAY_SORT and getattr(config, "SORT_SHADOW", True)
-                   and N >= _SORT_MIN_RAYS)
-        if do_sort:
-            if sort_perm is not None:
-                perm, inv = sort_perm
-            else:
-                perm, inv = _coherence_perm(scene, ro, rd)
-            ro, rd = ro[perm], rd[perm]
-            tmin, tmax = tmin[perm], tmax[perm]
-        blk = config.PACKET_BLOCK
-        Np, ro_p, rd_p, tmin_p, tmax_p = _pad_rays(ro, rd, tmin, tmax, blk)
-        nodes, tris = prep_tables(scene)
-        *_, prim = packet_traverse(
-            nodes, tris, ro_p, rd_p, tmin_p, tmax_p, any_hit=True, block=blk
-        )
-        found = prim[:N] >= 0
-        if do_sort:
-            found = found[inv]
-    else:
-        *_, found = _traverse(scene, ro, rd, tmin, tmax, any_hit=True)
+    *_, found = _traverse_backend(scene, ro, rd, tmin, tmax, any_hit=True)
     if scene.meta.n_sph > 0:
+        sg = jax.lax.stop_gradient
         _, valid_s = _sph_t(
-            scene.geometry, ro0, rd0, tmin0, tmax0, scene.meta.n_sph
+            sg(scene.geometry), sg(ro), sg(rd), sg(tmin), sg(tmax),
+            scene.meta.n_sph,
         )
         found = found | jnp.any(valid_s, axis=1)
     return found

@@ -52,9 +52,11 @@ def render_radiance(scene: Scene, options: RenderOptions, pixel_idx, sample0,
     mode = options.grad_mode
     if mode == "auto":
         # AD-of-scan stores residuals per bounce: memory scales with
-        # wavefront x depth. Beyond ~2^24 path-bounces (half a 1080p frame
+        # wavefront x depth. Beyond 2^24 path-bounces (half a 1080p frame
         # at depth 7) switch to path-replay, whose backward memory is
-        # O(wavefront) at ~2x the FLOPs (replays each bounce).
+        # O(wavefront) at ~2x the FLOPs (replays each bounce). Just under
+        # the switch, AD on room needs 14 GiB of temporaries on an H100
+        # (benchmarks/kernel_ab.py), well inside the card.
         mode = (
             "replay"
             if P * n_samples * (options.max_depth + 1) > (1 << 24)

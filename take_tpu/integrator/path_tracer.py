@@ -112,7 +112,6 @@ def _vertex_nee(scene: Scene, streams, i, hit, sp, spec, active, ro, rd):
     # The env map joins the light list as one extra uniform-selection
     # slot (capability extension: the reference has no env light).
     C1 = jnp.zeros_like(ro)
-    sort_perm = None
     if n_slots > 0:
         u_sel = rng.uniform(streams, rng.bounce_counter(i, rng.DIM_LIGHT_SELECT))
         u1 = rng.uniform(streams, rng.bounce_counter(i, rng.DIM_LIGHT_U1))
@@ -147,8 +146,8 @@ def _vertex_nee(scene: Scene, streams, i, hit, sp, spec, active, ro, rd):
         # NEE result is unused (dead or specular, path_tracing.h:24-26) get
         # tmax = -BIG: traversal culls them at the first box test.
         #
-        # STRUCTURALLY-ZERO lanes are culled the same way (round 5,
-        # benchmarks/shadow_cost.py — occlusion is 27.6% of a room pass):
+        # STRUCTURALLY-ZERO lanes are culled the same way
+        # (benchmarks/shadow_cost.py measures the occlusion share):
         #  (a) geometric backface for statically reflective tags — the
         #      _backface_zero eval preamble makes FG identically 0 there
         #      for EVERY parameter value, so value and derivative are both
@@ -188,27 +187,9 @@ def _vertex_nee(scene: Scene, streams, i, hit, sp, spec, active, ro, rd):
             )
         shadow_o = offset_origin(hit.pos, hit.geo_n, light_dir)
         nee_live = active & ~spec & ~zero_contrib
-        # shared coherence permutation: computed ONCE here from the shadow
-        # rays' true key and reused by this bounce's closest-hit query
-        # (origins are near-identical, so origin-Morton locality carries
-        # over; the argsort is 26 ms per 2^18 rays — ~40% of a room pass
-        # when every query sorts independently; round-5 measurement)
-        if (
-            scene.bvh is not None
-            and config.RAY_SORT
-            and getattr(config, "SORT_REUSE", True)
-        ):
-            from take_tpu.geometry.traverse import (
-                _SORT_MIN_RAYS,
-                _coherence_perm,
-            )
-
-            if N >= _SORT_MIN_RAYS:
-                sort_perm = _coherence_perm(scene, shadow_o, light_dir)
         shadow_occ = occluded(
             scene, shadow_o, light_dir, jnp.full(N, eps),
             jnp.where(nee_live, tmax_shadow, -3.4e38),
-            sort_perm=sort_perm,
         )
         FG = bsdf_eval(scene, sp, dir_in, light_dir)
         bp = bsdf_pdf(scene, sp, dir_in, light_dir)
@@ -255,7 +236,7 @@ def _vertex_nee(scene: Scene, streams, i, hit, sp, spec, active, ro, rd):
             ok_env = is_env & (bp > 0.0) & (env_pdf > 0.0) & (~shadow_occ)
             C1 = C1 + FG * Li_env * jnp.where(ok_env, w_env, 0.0)[:, None]
         C1 = jnp.where((spec | ~active)[:, None], 0.0, C1)
-    return C1, sort_perm
+    return C1
 
 
 def _vertex_sample(scene: Scene, streams, i, hit, sp, rd):
@@ -386,7 +367,7 @@ def _bounce_step(scene: Scene, streams, i, state):
     sp = make_shade_point(scene, hit)
     spec = is_specular(sp)
 
-    c, sort_perm = _vertex_nee(
+    c = _vertex_nee(
         scene, streams, i, hit, sp, spec, active, ro, rd
     )
 
@@ -395,12 +376,9 @@ def _bounce_step(scene: Scene, streams, i, state):
     )
     # dead lanes trace instantly-culled rays (tmax = -BIG): on BVH scenes a
     # mostly-terminated wave stops paying full traversal per bounce.
-    # sort_perm: the shadow query's coherence permutation, reused here —
-    # same origins, so origin-Morton locality holds (round-5 measurement)
     new_hit = intersect_scene(
         scene, new_ro, dir_out, tmin0,
         jnp.where(active & sample_ok, tmax0, -3.4e38),
-        sort_perm=sort_perm,
     )
 
     miss_term, C2_term, contrib = _arrival_contribs(
@@ -487,52 +465,37 @@ def trace_mis(scene: Scene, options: RenderOptions, ro, rd, streams):
 
 
 def trace_query_counts(scene: Scene, options: RenderOptions, ro, rd, streams):
-    """Scene-query accounting for a batch of camera rays (bench honesty).
+    """Scene-query accounting for a batch of camera rays.
 
-    Returns (nominal, active, swept) scalar query counts for this batch:
+    Returns (nominal, active) scalar query counts for this batch:
       nominal = what the fixed-trip scan actually launches
                (1 camera intersect + per trip: 1 shadow + 1 bounce, full
                 width — dead lanes still occupy the launch),
       active  = queries on lanes that were alive at that bounce (shadow
                 queries only count non-specular live lanes, matching the
-                reference's NEE skip, path_tracing.h:24-26),
-      swept   = lanes in blocks the kernels actually sweep after the
-                dead-block skip (pallas_brute round 5): a launched block
-                whose driver-side cull mask (`active` for bounce rays,
-                `active & ~spec` for shadow rays — the masks that set
-                tmax = -BIG) is all-dead costs ~nothing; swept counts the
-                others at full block width, mirroring lockstep cost.
+                reference's NEE skip, path_tracing.h:24-26).
     """
-    from take_tpu.geometry.pallas_brute import BLOCK
     from take_tpu.materials.bsdf import is_specular, make_shade_point
 
     N = ro.shape[0]
-    npad = -(-N // BLOCK) * BLOCK
-
-    def blocks_swept(mask):
-        m = jnp.zeros(npad, bool).at[:N].set(mask)
-        per_block = jnp.any(m.reshape(npad // BLOCK, BLOCK), axis=1)
-        return jnp.sum(per_block.astype(jnp.int32)) * BLOCK
-
     _, state = _camera_vertex(scene, ro, rd)
 
     def bounce(carry, i):
-        state, nq, aq, sq = carry
+        state, nq, aq = carry
         _, _, hit, active = state
         spec = is_specular(make_shade_point(scene, hit))
         live = jnp.sum(active.astype(jnp.int32))
         shadow = jnp.sum((active & ~spec).astype(jnp.int32))
-        sq = sq + blocks_swept(active) + blocks_swept(active & ~spec)
         state, _, _ = _bounce_step(scene, streams, i, state)
-        return (state, nq + 2 * N, aq + live + shadow, sq), None
+        return (state, nq + 2 * N, aq + live + shadow), None
 
     # int32 is safe: callers batch <= 2^20 paths * <= 51 trips * 2 < 2^31;
     # cross-batch accumulation happens on host in Python ints
-    init = (state, jnp.int32(N), jnp.int32(N), jnp.int32(N))
-    (state, nominal, active, swept), _ = jax.lax.scan(
+    init = (state, jnp.int32(N), jnp.int32(N))
+    (state, nominal, active), _ = jax.lax.scan(
         bounce, init, jnp.arange(options.max_depth + 1, dtype=jnp.uint32)
     )
-    return nominal, active, swept
+    return nominal, active
 
 # ---------------------------------------------------------------------------
 # Early-exit + path-replay driver

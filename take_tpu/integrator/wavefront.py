@@ -156,9 +156,7 @@ def trace_wavefront(scene: Scene, options: RenderOptions, pixel_idx,
         iv = nextv.astype(jnp.uint32)
         sp = make_shade_point(scene, hit)
         specn = is_specular(sp)
-        # (the shared sort_perm is not reusable here: the next closest-hit
-        # query happens in the NEXT iteration after refill rewrites lanes)
-        C1n, _ = _vertex_nee(
+        C1n = _vertex_nee(
             scene, st, iv, hit, sp, specn, cont, pend_ro, pend_rd
         )
         new_ro, dir_out, FGn, bpdfn, sokn = _vertex_sample(

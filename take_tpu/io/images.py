@@ -74,7 +74,14 @@ def imread3(path):
         from take_tpu.io.pfm import read_pfm
 
         return read_pfm(path)
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"reading {path!r} needs the Pillow package (PIL), which is not "
+            "installed; convert the texture to .exr, .hdr or .pfm, or "
+            "install Pillow"
+        ) from e
 
     img = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
     return img**2.2  # stbi_loadf ldr->hdr gamma (image.cpp via stb defaults)

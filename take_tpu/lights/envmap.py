@@ -8,8 +8,9 @@ texels importance-weighted by luminance * sin(theta); the alias table gives
 O(1) texel sampling on device (two gathers + one compare).
 """
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
 
 from take_tpu.core.math import C_PI, C_TWOPI, luminance
 from take_tpu.scene.types import EnvMap
@@ -97,7 +98,9 @@ def build_envmap(data: np.ndarray, to_world4=None, scale=1.0) -> EnvMap:
 
 def _dir_to_uv(env: EnvMap, d):
     """World direction [N,3] -> (u, v) in [0,1)^2 (Mitsuba lat-long)."""
-    dl = d @ env.to_local.T
+    # HIGHEST: a default-precision f32 product may run in TF32 on the GPU
+    # (~3 decimal digits), which would shift texel lookups
+    dl = jnp.matmul(d, env.to_local.T, precision=jax.lax.Precision.HIGHEST)
     u = jnp.arctan2(dl[..., 0], -dl[..., 2]) / C_TWOPI + 0.5
     v = jnp.arccos(jnp.clip(dl[..., 1], -1.0, 1.0)) / C_PI
     return u, v
@@ -110,7 +113,7 @@ def _uv_to_dir(env: EnvMap, u, v):
     dl = jnp.stack(
         [sin_t * jnp.sin(phi), jnp.cos(theta), -sin_t * jnp.cos(phi)], axis=-1
     )
-    return dl @ env.to_world.T
+    return jnp.matmul(dl, env.to_world.T, precision=jax.lax.Precision.HIGHEST)
 
 
 def envmap_eval(env: EnvMap, d):

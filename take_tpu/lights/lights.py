@@ -1,6 +1,6 @@
 """Vectorized light selection, surface sampling, and pdfs.
 
-Counterpart of light.{h,cpp}, in TPU-native form: per-light geometry is
+Counterpart of light.{h,cpp}, in batched form: per-light geometry is
 resolved into a packed attribute table at build time (LightArrays.attr), so
 sampling a selected light is ONE one-hot [N, L] @ [L, LATTR_DIM] matmul
 followed by branch-free warps — zero gathers on the hot path.

@@ -81,7 +81,7 @@ def make_shade_point(scene: Scene, hit) -> ShadePoint:
     """Combine material parameters + evaluate textures for a Hit batch.
 
     Parameters come from one one-hot [N, M] @ [M, MATTR_DIM] matmul over the
-    packed material table — the TPU-friendly form of the reference's
+    packed material table — the batched form of the reference's
     std::visit dispatch (no per-field gathers)."""
     from take_tpu.scene import types as ST
 

@@ -8,8 +8,10 @@ pixel batch is split into bands and the gradient of EACH band is taken
 through its own shard_map region inside a lax.scan: the forward psums the
 band loss, and shard_map's transpose rule turns the replicated-parameter
 cotangents into a per-band psum — so band k's parameter reduction depends
-only on band k's backward, and the TPU scheduler's async collectives can
+only on band k's backward, and the scheduler's async collectives can
 hide it under band k+1's replay. The scan-carry add is the only join.
+Inside shard_map each device also runs the scene-query kernels on its own
+rays only.
 
 (grad INSIDE one big shard_map would express the same thing, but this JAX
 version's ShardMapTracer does not implement linearization hooks, so the
@@ -48,19 +50,14 @@ def banded_loss_grad(scene, options, pixel_idx, target, n_bands: int,
     Returns:
         (loss, grads) — replicated; loss is the monolithic mean.
     """
-    # NOTE: jax.shard_map (stable, v0.8+) renamed check_rep -> check_vma;
-    # staying on the experimental import until the pinned jax moves, to
-    # keep one code path (the DeprecationWarning in tests is this line).
-    from jax.experimental.shard_map import shard_map
-
     N = pixel_idx.shape[0]
     band = N // n_bands
 
     @functools.partial(
-        shard_map, mesh=mesh,
+        jax.shard_map, mesh=mesh,
         in_specs=(P(), P(AXIS), P(AXIS)),
         out_specs=P(),
-        check_rep=False,
+        check_vma=False,
     )
     def band_loss(scene, pixk, tgtk):
         img = render_radiance(scene, options, pixk, jnp.int32(0),

@@ -2,16 +2,19 @@
 
 The scaling design (SURVEY §2.3): image tiles / ray batches are DATA
 parallel — the path axis is sharded with NamedSharding(P("rays")) while the
-scene pytree is replicated; XLA/GSPMD partitions the whole wavefront program
-with zero collectives in the forward pass (rays never talk to each other)
-and a single psum for replicated-parameter gradients in the backward pass.
-The same code path runs on 1 chip, N chips, or (with jax.distributed
-initialized by the launcher) N hosts; tiles stay resident on their shard and
-the scene is replicated per device, so all communication rides ICI.
+scene pytree is replicated; each device runs the whole wavefront program on
+its own rays (render.render_pass(mesh=...) wraps the pass in shard_map) with
+zero collectives in the forward pass, and gradients take a single psum for
+replicated parameters (parallel/overlap.py). The same code path runs on 1
+device, N devices, or (with jax.distributed initialized by the launcher) N
+hosts. The mesh is flat: every GPU of a host reaches every other over
+NVLink at the same rate.
 
 Determinism: the counter-based RNG keys by (pixel, sample), not by device,
-so images are bit-identical at any device count — asserted in
-tests/test_sharding.py.
+so every device count traces the same paths. On the CPU the images are
+bit-identical (tests/test_sharding.py); on GPUs the per-device batch size
+can change XLA's code and so the last bits (chip_smoke.py --cards 4
+reports the difference).
 """
 
 import functools
@@ -48,8 +51,8 @@ def render_image_sharded(
 ):
     """Full-frame render with the pixel axis sharded across the mesh.
 
-    Returns [H, W, 3] float32 numpy (y-flipped), bit-identical to the
-    single-device render_image for the same options.seed.
+    Returns [H, W, 3] float32 numpy (y-flipped), the single-device
+    render_image for the same options.seed (see the determinism note).
     """
     if mesh is None:
         mesh = make_mesh()
@@ -74,7 +77,7 @@ def render_image_sharded(
     s = 0
     while s < options.spp:
         ns = min(k, options.spp - s)
-        out = render_pass(scene, options, pix, jnp.int32(s), W, ns)
+        out = render_pass(scene, options, pix, jnp.int32(s), W, ns, mesh=mesh)
         acc = out if acc is None else acc + out
         s += ns
 

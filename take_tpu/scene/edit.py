@@ -6,9 +6,9 @@ differentiable source of truth, and the ONLY thing these helpers write
 (the per-field duplicates were deleted in round 3).
 
 What a training step must recompute after GEOMETRY edits (none of the
-helpers here touch geometry): tri_affine_o/d + tri_sweep (derived affine
-operands, scene/build.py::_pack_triangles) and the BVH tables incl.
-cl_aabb/sup_aabb — rebuild through SceneBuilder. Material/light/texture
+helpers here touch geometry): tri_affine_o/d (derived affine operands,
+scene/build.py::_pack_triangles) and the BVH tables — rebuild through
+SceneBuilder. Material/light/texture
 edits need no derived-table rebuilds except the envmap sampling tables for
 large distribution shifts (see with_envmap_data).
 """

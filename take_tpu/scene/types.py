@@ -1,6 +1,6 @@
 """Scene representation: tagged SoA device arrays + static metadata.
 
-This is the TPU-native answer to the reference's AoS object graph
+This is the accelerator-friendly answer to the reference's AoS object graph
 (scene.h:13-33): every std::variant becomes an integer tag + flat parameter
 table, every std::vector<Struct> becomes a struct of arrays, and all
 triangles are pre-flattened into one soup (no Triangle{mesh_id,face_id}
@@ -94,22 +94,12 @@ class GeometryArrays:
     tri_mat: Any  # [T] int32
     tri_light: Any  # [T] int32, -1 if not emissive
     tri_flags: Any  # [T] int32
-    # MXU-packed intersection operands (see geometry/intersect.py):
+    # Packed intersection operands (see geometry/intersect.py):
     # affine maps into per-triangle (u, v, w) frames, axis-major layout so
     # [N,4] @ tri_affine_o yields contiguous [N, :T]=u / [N, T:2T]=v /
     # [N, 2T:]=w slices.
     tri_affine_o: Any  # [4, 3T]  homogeneous origin map
     tri_affine_d: Any  # [3, 3T]  direction map
-    # Transposed per-supercluster granules of the same affine operands for
-    # the Pallas streaming sweep (pallas_cluster.py): rows (sup*24 + j)
-    # hold operand j (o_u[4], o_v[4], o_w[4], d_u[3], d_v[3], d_w[3],
-    # pad[3]) of that supercluster's SUPT triangles on lanes. Padding
-    # triangles are all-zero columns => dw == 0 => the parallel-ray reject
-    # masks them. The table covers EVERY row of the (GROUP-padded) sup_aabb
-    # table — the kernel DMAs [24, SUPT] granules, so the allocation must
-    # cover all SupP sup ids, including NaN-padded ones (asserted in
-    # pallas_cluster.cluster_traverse).
-    tri_sweep: Any  # [SupP*24, SUPT], SupP a GROUP multiple
     tri_attr: Any  # [T, ATTR_DIM] packed shading attributes
     sph_center: Any  # [S, 3]
     sph_radius: Any  # [S]
@@ -226,18 +216,6 @@ class BVHArrays:
     node_max: Any  # [NODES, W, 3] child box maxima
     node_child: Any  # [NODES, W] int32: >=0 internal node id, <0 ~leaf encoding
     node_count: Any  # [NODES, W] int32: leaf primitive count (0 for internal)
-    # Flat cluster AABBs for the streaming cull+sweep pipeline
-    # (geometry/pallas_cluster.py): cluster c covers the Morton-ordered
-    # triangle run [c*K, (c+1)*K). Row = (min.xyz, max.xyz, 0, 0); padding
-    # clusters carry all-NaN rows so every slab comparison is false (an
-    # inverted box would NOT miss — min/max slab semantics turn it into an
-    # all-space box). Second line of defense: padded tri_sweep rows are
-    # all-zero and reject as parallel.
-    cl_aabb: Any  # [Cpad, 8] f32
-    # Supercluster AABBs: union of SUP consecutive clusters — the sweep
-    # kernel's slab-cull table + HBM->VMEM DMA granule index. Padded to a
-    # multiple of pallas_cluster GROUP with NaN rows.
-    sup_aabb: Any  # [SupP, 8] f32
 
 
 @dataclass(frozen=True)

@@ -19,7 +19,9 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/take_tpu_jax_cache")
+    from take_tpu.config import enable_compile_cache
+
+    enable_compile_cache()
 
     from take_tpu.parallel.distributed import (
         init_distributed,

@@ -95,79 +95,36 @@ def test_render_with_bvh_matches_brute_force():
     assert diff < 2e-2, diff
 
 
-def test_two_phase_closest_exact(rng_np):
-    """Two-phase traversal (short-range resolve + compacted full-range
-    remainder) must be bit-identical to a single full-range query."""
-    import jax.numpy as jnp
-    from take_tpu.geometry.intersect import _tri_uvt
-    from take_tpu.geometry.traverse import _two_phase_closest
-
-    scene = random_soup_scene(400, build_bvh=True)
-    N = 4096
-    ro = jnp.asarray(rng_np.uniform(-15, 15, (N, 3)), jnp.float32)
-    d = rng_np.normal(size=(N, 3))
-    rd = jnp.asarray(d / np.linalg.norm(d, axis=1, keepdims=True), jnp.float32)
-    tmin = jnp.full(N, 1e-4)
-    # mixed tmax: infinite, finite, and dead lanes
-    tmax = jnp.asarray(rng_np.uniform(2.0, 40.0, N), jnp.float32)
-    tmax = jnp.where(jnp.asarray(rng_np.uniform(size=N) < 0.3), jnp.inf, tmax)
-    tmax = jnp.where(jnp.asarray(rng_np.uniform(size=N) < 0.1), -3.4e38, tmax)
-
-    def closest(ro_q, rd_q, tmin_q, tmax_q):
-        t, u, v, ok = _tri_uvt(
-            scene.geometry, ro_q, rd_q, tmin_q, tmax_q, scene.meta.n_tri
-        )
-        tm = jnp.where(ok, t, 3.4e38)
-        k = jnp.argmin(tm, axis=1)
-        tb = jnp.min(tm, axis=1)
-        found = tb < 3.4e38
-        sel = lambda a: jnp.take_along_axis(a, k[:, None], axis=1)[:, 0]
-        return (
-            jnp.where(found, tb, 3.4e38),
-            sel(u), sel(v),
-            jnp.where(found, k, -1),
-        )
-
-    ref = closest(ro, rd, tmin, tmax)
-    for d0 in [1e-3, 5.0, 1e9]:
-        out = _two_phase_closest(closest, jnp.float32(d0), ro, rd, tmin, tmax)
-        for a, b in zip(out, ref):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_occluded_sphere_merge_with_ray_sort(monkeypatch, rng_np):
-    """Regression (ADVICE r3 high): with RAY_SORT active on a kernel path,
-    bvh_occluded permutes rays for the kernel but must run the analytic-
-    sphere merge on ORIGINAL-order rays; the bug OR'd sphere occlusion into
-    the wrong lanes. Forces the cluster path (interpret mode) on CPU."""
-    import functools
-
-    from take_tpu import config
+def test_occluded_sphere_merge_with_ray_sort(rng_np):
+    """bvh_occluded ORs the analytic-sphere test into the triangle any-hit
+    result lane by lane (an earlier kernel path permuted rays and merged
+    spheres into the wrong lanes); the merged result must equal the
+    brute-force any-hit of the same geometry."""
     from take_tpu.geometry import traverse
-    from take_tpu.geometry import pallas_cluster
-    from take_tpu.geometry.traverse import bvh_occluded
+    from take_tpu.geometry.intersect import _sph_t
 
-    b = SceneBuilder()
-    b.camera = Camera(8, 8, (0, 0, 30), (0, 0, 0), (0, 1, 0), 45.0)
-    m = b.add_material(MAT_DIFFUSE)
-    rng = np.random.default_rng(7)
-    for c in rng.uniform(-10, 10, (64, 3)):
-        v = c + rng.uniform(-0.8, 0.8, (3, 3))
-        b.add_mesh(v, np.array([[0, 1, 2]]), m)
-    for c in rng.uniform(-10, 10, (3, 3)):
-        b.add_sphere(tuple(c), 1.5, m)
-    scene = b.build(build_bvh=True)
+    def build(bvh):
+        b = SceneBuilder()
+        b.camera = Camera(8, 8, (0, 0, 30), (0, 0, 0), (0, 1, 0), 45.0)
+        m = b.add_material(MAT_DIFFUSE)
+        rng = np.random.default_rng(7)
+        for c in rng.uniform(-10, 10, (64, 3)):
+            v = c + rng.uniform(-0.8, 0.8, (3, 3))
+            b.add_mesh(v, np.array([[0, 1, 2]]), m)
+        for c in rng.uniform(-10, 10, (3, 3)):
+            b.add_sphere(tuple(c), 1.5, m)
+        return b.build(build_bvh=bvh)
+
+    scene = build(True)
     assert scene.meta.n_sph == 3
 
-    N = traverse._SORT_MIN_RAYS  # large enough to trigger the sort
+    N = 4096
+    rng = np.random.default_rng(7)
     ro = jnp.asarray(rng.uniform(-12, 12, (N, 3)), jnp.float32)
     d = rng.normal(size=(N, 3))
     rd = jnp.asarray(d / np.linalg.norm(d, axis=1, keepdims=True), jnp.float32)
     tmin = jnp.full(N, 1e-4)
     tmax = jnp.full(N, jnp.inf)
-
-    # reference: un-permuted jnp traversal + sphere merge
-    from take_tpu.geometry.intersect import _sph_t
 
     *_, found_tri = traverse._traverse(
         scene, ro, rd, tmin, tmax, any_hit=True
@@ -175,74 +132,10 @@ def test_occluded_sphere_merge_with_ray_sort(monkeypatch, rng_np):
     _, valid_s = _sph_t(scene.geometry, ro, rd, tmin, tmax, 3)
     ref = np.asarray(found_tri | jnp.any(valid_s, axis=1))
     assert ref.any() and not ref.all()
+    # lanes occluded only by a sphere exist, so a lane mix-up would show
+    assert (np.asarray(valid_s).any(1) & ~np.asarray(found_tri)).any()
 
-    # force the cluster kernel path (interpret mode) with ray sorting on
-    monkeypatch.setattr(config, "RAY_SORT", True)
-    monkeypatch.setattr(config, "FORCE_CLUSTER", True)
-    monkeypatch.setattr(traverse, "_cluster_eligible", lambda s: True)
-    monkeypatch.setattr(
-        pallas_cluster, "cluster_traverse",
-        functools.partial(pallas_cluster.cluster_traverse, interpret=True),
-    )
-    got = np.asarray(bvh_occluded(scene, ro, rd, tmin, tmax))
-    np.testing.assert_array_equal(got, ref)
-
-
-def test_counting_perm_is_valid_stable_bucketing(rng_np):
-    """_counting_perm: a bijection whose output is bucket-sorted by the
-    top key bits with ORIGINAL order inside each bucket (stability), for
-    sizes on and off the chunk boundary."""
-    from take_tpu.geometry.traverse import _counting_perm
-
-    for N in [1 << 15, (1 << 15) + 1, 70000, 4096]:
-        key = jnp.asarray(
-            rng_np.integers(0, 1 << 27, N, dtype=np.int64), jnp.int32)
-        perm, inv = _counting_perm(key, 10)
-        p = np.asarray(perm)
-        assert sorted(p.tolist()) == list(range(N))  # bijection
-        np.testing.assert_array_equal(
-            np.asarray(inv)[p], np.arange(N))  # inverse
-        b = np.asarray(key)[p] >> 17
-        assert (np.diff(b) >= 0).all()  # bucket-sorted
-        # stability: original indices ascend within equal buckets
-        same = np.diff(b) == 0
-        assert (np.diff(p)[same] > 0).all()
-
-
-def test_occluded_with_counting_sort_mode(monkeypatch, rng_np):
-    """The counting-sort permutation slots into the kernel ray-binning
-    path (SORT_MODE="counting") with identical results — correctness is
-    permutation-independent by the tie-break design."""
-    import functools
-
-    from take_tpu import config
-    from take_tpu.geometry import pallas_cluster, traverse
-
-    b = SceneBuilder()
-    b.camera = Camera(8, 8, (0, 0, 30), (0, 0, 0), (0, 1, 0), 45.0)
-    m = b.add_material(MAT_DIFFUSE)
-    rng = np.random.default_rng(11)
-    for c in rng.uniform(-10, 10, (64, 3)):
-        v = c + rng.uniform(-0.8, 0.8, (3, 3))
-        b.add_mesh(v, np.array([[0, 1, 2]]), m)
-    scene = b.build(build_bvh=True)
-
-    N = traverse._SORT_MIN_RAYS
-    ro = jnp.asarray(rng.uniform(-12, 12, (N, 3)), jnp.float32)
-    d = rng.normal(size=(N, 3))
-    rd = jnp.asarray(d / np.linalg.norm(d, axis=1, keepdims=True),
-                     jnp.float32)
-    tmin = jnp.full(N, 1e-4)
-    tmax = jnp.full(N, jnp.inf)
-
-    *_, found_ref = traverse._traverse(scene, ro, rd, tmin, tmax,
-                                       any_hit=True)
-    monkeypatch.setattr(config, "SORT_MODE", "counting")
-    monkeypatch.setattr(config, "FORCE_CLUSTER", True)
-    monkeypatch.setattr(traverse, "_cluster_eligible", lambda s: True)
-    monkeypatch.setattr(
-        pallas_cluster, "cluster_traverse",
-        functools.partial(pallas_cluster.cluster_traverse, interpret=True),
-    )
     got = np.asarray(traverse.bvh_occluded(scene, ro, rd, tmin, tmax))
-    np.testing.assert_array_equal(got, np.asarray(found_ref))
+    np.testing.assert_array_equal(got, ref)
+    brute = np.asarray(occluded(build(False), ro, rd, tmin, tmax))
+    np.testing.assert_array_equal(got, brute)
